@@ -1,5 +1,5 @@
 # Deployment image (reference Dockerfile parity: python-slim + audio stack;
-# TPU serving images inherit their JAX/libtpu base instead).
+# GPU serving images inherit a CUDA-enabled JAX base instead).
 FROM python:3.12-slim
 
 RUN apt-get update \

@@ -44,7 +44,7 @@ def main() -> None:
     ap.add_argument("--quick", action="store_true",
                     help="S=8 only, 2 seeds (CI smoke)")
     ap.add_argument("--out", default="benchmarks/awgn_envelope.json")
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     args = ap.parse_args()
 
     if args.platform:

@@ -31,7 +31,7 @@ sys.path.insert(0, str(Path(__file__).parents[1]))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="benchmarks/codec_envelope.json")
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     ap.add_argument("--draws", type=int, default=4,
                     help="independent (nonce, excerpt) draws per row")
     args = ap.parse_args()

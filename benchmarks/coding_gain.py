@@ -39,7 +39,7 @@ sys.path.insert(0, str(Path(__file__).parents[1]))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="benchmarks/coding_gain.json")
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     ap.add_argument("--frames", type=int, default=512)
     ap.add_argument("--list-size", type=int, default=32)
     args = ap.parse_args()

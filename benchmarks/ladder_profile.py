@@ -52,7 +52,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     ap.add_argument("--rows", default=None,
                     help="comma-separated subset of row names")
     args = ap.parse_args()

@@ -36,7 +36,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--bitrate", type=int, default=128)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     args = ap.parse_args()
 
     if args.platform:

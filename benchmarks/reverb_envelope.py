@@ -25,7 +25,7 @@ sys.path.insert(0, str(Path(__file__).parents[1]))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="benchmarks/reverb_envelope.json")
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     ap.add_argument("--draws", type=int, default=3,
                     help="independent RIR draws per grid point")
     args = ap.parse_args()

@@ -1,8 +1,8 @@
 #!/bin/sh
 # Serial chip-measurement suite: run every benchmark that feeds the
-# committed JSON artifacts, one process at a time (the benchmarks share
-# one TPU chip and one host core; parallel runs contend and time
-# compiles instead of steady state).  Each step appends to
+# committed JSON artifacts, one process at a time (a JAX process reserves
+# most of the GPU's memory, so a second one on the card fails, and
+# parallel runs would contend and time compiles instead of steady state).  Each step appends to
 # benchmarks/chip_suite.log; rerunning is idempotent (every script
 # rewrites its own artifact).
 #
@@ -13,10 +13,10 @@ LOG=benchmarks/chip_suite.log
 : > "$LOG"
 
 probe() {
-    # refuse to burn hours if the backend is down (it hangs, not errors)
-    timeout 120 python -c "import jax,jax.numpy as jnp; print(float(jnp.sum(jnp.arange(8.0))))" >> "$LOG" 2>&1
+    # the suite measures the GPU only: refuse to start without one
+    timeout 120 python -c "from echoseal_tpu.utils.device import gpu_info; print(gpu_info())" >> "$LOG" 2>&1
 }
-probe || { echo "TPU backend unreachable -- aborting suite" | tee -a "$LOG"; exit 1; }
+probe || { echo "no GPU visible to JAX -- aborting suite" | tee -a "$LOG"; exit 1; }
 
 timeout 3600 python benchmarks/scl_sweep.py --skip-reference \
     --out benchmarks/scl_sweep_serving.json >> "$LOG" 2>&1

@@ -38,7 +38,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--stream-s", type=float, default=120.0)
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     ap.add_argument("--out", default="benchmarks/serving_latency.json")
     args = ap.parse_args()
 

@@ -37,7 +37,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--per-class", type=int, default=8)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     args = ap.parse_args()
 
     if args.platform:

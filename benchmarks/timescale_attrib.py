@@ -46,7 +46,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--factor", type=float, default=1.031)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     args = ap.parse_args()
 
     if args.platform:

@@ -1,4 +1,4 @@
-"""EchoSeal-TPU: real-time ultrasonic audio watermarking, TPU-native.
+"""EchoSeal: real-time ultrasonic audio watermarking, batched JAX RX.
 
 A from-scratch JAX/XLA rebuild of the EchoSeal capability surface
 (reference: PetarSt98/EchoSeal): a transmitter mixes an AES-encrypted,

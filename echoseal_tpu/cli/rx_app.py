@@ -1,7 +1,7 @@
 """Receiver CLI (``echoseal-rx`` / ``rtwm-rx``): verify an audio file.
 
 Flag surface mirrors the reference rx_app.py:9-13 (--key --audio) plus a
---batch mode that verifies many files in one TPU dispatch.
+--batch mode that verifies many files in one device dispatch.
 """
 from __future__ import annotations
 

@@ -47,7 +47,7 @@ def parse_args(argv=None):
                         "bits (default 448 = reference rate; floor 360 = "
                         "the AEAD envelope). Lower K buys AWGN margin "
                         "with payload rate -- the measured frontier is "
-                        "benchmarks/awgn_envelope.json rate_axis. TX and "
+                        "benchmarks/awgn_envelope.py rate_axis. TX and "
                         "RX must agree on K.")
     p.add_argument("--native", action="store_true",
                    help="mix in the C ring mixer (lock-free audio callback; "

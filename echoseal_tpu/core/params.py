@@ -95,7 +95,7 @@ class RxParams:
     # (models/pipeline.py), where the SCL/extended-counter fan-out routes
     # far more decoder candidates through acceptance.
     accept_legacy_plaintext: bool = True
-    # TPU additions (not in the reference):
+    # batched-receiver additions (not in the reference):
     scl_budget: int = 64     # max candidates sent through the SCL ladder
     scl_batch: int = 32      # SCL dispatch batch size
     timescale_grid: Tuple[float, ...] = ()  # optional time-scale search grid

@@ -70,7 +70,7 @@ def v2_profile(payload_k: int = 448) -> WaveformProfile:
 
     The noise-capacity frontier knob (VERDICT r3 next #6): lower K buys
     AWGN margin with payload rate -- measured in
-    benchmarks/awgn_envelope.json ``rate_axis`` (K=360 is the floor the
+    benchmarks/awgn_envelope.py ``rate_axis`` (K=360 is the floor the
     44-byte AEAD envelope + CRC-8 admits).  TX and RX must agree on K.
     """
     if payload_k == ROBUST.payload_k:

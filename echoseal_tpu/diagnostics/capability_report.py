@@ -72,7 +72,7 @@ if __name__ == "__main__":
         description="Measured capability envelope: accept rates across "
                     "hosts x impairments (JSON to stdout).")
     ap.add_argument("--seconds", type=float, default=4.0)
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"),
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"),
                     help="cpu forces XLA:CPU (e.g. when the accelerator "
                          "backend is down -- its init HANGS, not errors)")
     args = ap.parse_args()

@@ -83,7 +83,7 @@ if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--platform", default=None, choices=("cpu", "tpu"),
+    ap.add_argument("--platform", default=None, choices=("cpu", "gpu"),
                     help="cpu forces XLA:CPU (the accelerator backend "
                          "HANGS on init when down)")
     args = ap.parse_args()

@@ -17,7 +17,7 @@ class RxGUI:
         self.tk = tk
         self.filedialog = filedialog
         self.root = root or tk.Tk()
-        self.root.title("EchoSeal-TPU verifier")
+        self.root.title("EchoSeal verifier")
 
         frm = ttk.Frame(self.root, padding=12)
         frm.grid(sticky="nsew")

@@ -37,7 +37,7 @@ class TxGUI:
 
         self.tk = tk
         self.root = root or tk.Tk()
-        self.root.title("EchoSeal-TPU transmitter")
+        self.root.title("EchoSeal transmitter")
         self._loop = None
         self._vu: queue.Queue[float] = queue.Queue(maxsize=8)
 

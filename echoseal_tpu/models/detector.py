@@ -1,6 +1,6 @@
 """Watermark verifier (RX engine).
 
-TPU-first pipeline: the per-clip work is two fixed-shape device programs
+Device-first pipeline: the per-clip work is two fixed-shape device programs
 plus host-side crypto.  Where the reference nests Python loops over bands,
 peaks, counters and SCL paths (rtwm/detector.py:44-245), this detector runs
 *staged batched passes*:
@@ -9,7 +9,7 @@ peaks, counters and SCL paths (rtwm/detector.py:44-245), this detector runs
       4-band sync correlation (FFT), CFAR threshold, exact greedy NMS,
       top-K peaks; FIR band filterbank; demodulate every (band, peak,
       alignment-offset) window with the per-band least-squares matrices
-      (one MXU matmul per model variant); preamble scores + header decode
+      (one matmul per model variant); preamble scores + header decode
       for every candidate at once.
   host
       candidate-counter enumeration with the reference's fallback ladder
@@ -91,8 +91,8 @@ def _cand_bucket(n: int, floor: int = 32) -> int:
 
     Row counts vary arbitrarily (candidates per clip, failing clips per
     batch, windows per monitor feed); without bucketing every distinct
-    count would trigger a fresh XLA compile of the stage -- minutes each
-    on TPU.  The shared helper keeps every padded dispatch in the repo on
+    count would trigger a fresh XLA compile of the stage.  The shared
+    helper keeps every padded dispatch in the repo on
     the same bucket ladder.
     """
     b = floor

@@ -3,9 +3,9 @@
 Two execution tiers behind one API:
 
 * **Streaming path** (`WatermarkEmbedder.process`): sample-accurate NumPy
-  mixer for the real-time audio callback.  A TPU round-trip per 21 ms audio
-  block would add latency for no gain (SURVEY.md sec 7.4.5), so frame chips
-  are synthesised host-side exactly like the reference
+  mixer for the real-time audio callback.  A device round-trip per 21 ms
+  audio block would add latency for no gain (SURVEY.md sec 7.4.5), so frame
+  chips are synthesised host-side exactly like the reference
   (rtwm/embedder.py:44-151): per-frame seal -> polar encode -> BPSK ->
   counter header -> PN spread -> stateful Butterworth band-pass -> peak
   guard, mixed at an RMS-proportional level with an absolute floor and a
@@ -248,10 +248,8 @@ class BatchEmbedder:
         """Like ``frames`` but returns the device array WITHOUT downloading.
 
         Callers composing further device work (benchmark clip staging,
-        whole-stream synthesis) keep the ~580 KB/dispatch result on-chip --
-        on a thin host<->device link every avoided download is latency and
-        a chance for a transient backend fault (VERDICT r2: the round-2
-        bench died in exactly such a download loop).
+        whole-stream synthesis) keep the ~580 KB/dispatch result on the
+        device instead of downloading it.
         """
         ctrs = np.asarray(ctrs, dtype=np.int64)
         nonce = session_nonce or secrets.token_bytes(8)

@@ -1,6 +1,6 @@
 """Native (C) runtime tier: lock-free real-time mixer.
 
-The TPU owns the batch compute path; the native tier owns the
+The accelerator owns the batch compute path; the native tier owns the
 latency-critical host runtime around it -- here, the audio-callback mixer
 (a lock-free SPSC chip ring written in C, see mixer.c) so the PortAudio
 thread never touches Python allocation or the GIL-heavy NumPy dispatch.

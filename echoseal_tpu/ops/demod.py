@@ -1,4 +1,4 @@
-"""Frame demodulation as dense linear algebra (the TPU-native receiver).
+"""Frame demodulation as dense linear algebra (the batched receiver).
 
 The reference recovers payload chips with a matched filter plus an integer
 chip-phase search (rtwm/detector.py:296-416).  At 48 kHz chip rate through a
@@ -17,7 +17,7 @@ Chip recovery is Tikhonov-regularised least squares
 
 with M precomputed per band ONCE on the host in float64 and shipped to the
 device as an f32 constant.  Demodulating any number of candidate frames is
-then a single MXU matmul: (candidates, W) x (W, 1215).
+then a single matmul: (candidates, W) x (W, 1215).
 
 Two model variants are built:
 
@@ -43,7 +43,6 @@ format, not a demodulation shortcoming -- use the v2 profile for hosts
 """
 from __future__ import annotations
 
-import os
 from functools import lru_cache
 
 import jax
@@ -174,14 +173,10 @@ def slice_windows(x: jnp.ndarray, starts: jnp.ndarray,
     clamps the upper bound but wraps NEGATIVE starts through the
     unsigned range on this backend (observed: -9 landed at T - span).
 
-    Formulation matters on TPU: a ``take_along_axis`` over a per-sample
-    index lattice is a gather of individual ELEMENTS, paying the
-    backend's fixed per-row-op cost once per sample (~1.07 s for 256
-    clips x 16 windows x 9720 samples -- 87% of the whole v2 serving
-    stage).  A vmapped ``dynamic_slice`` lowers to ONE gather HLO whose
-    slice size is the whole window, so the fixed cost is paid per
-    WINDOW instead: 42 ms for the same lattice, bit-identical output
-    (measured on chip, round 3).
+    A vmapped ``dynamic_slice`` lowers to ONE gather HLO whose slice
+    size is the whole window, instead of a ``take_along_axis`` over a
+    per-sample index lattice (a gather of individual ELEMENTS, 9720 per
+    v2 window); the output is bit-identical.
     """
     starts = jnp.clip(starts.astype(jnp.int32), 0, x.shape[-1] - span)
     if x.ndim == 1:
@@ -204,17 +199,18 @@ def normalized_xcorr(x: jnp.ndarray, templates: jnp.ndarray,
     """Sliding cosine similarity of ``x`` (..., T) vs (B, L) templates.
 
     Returns (..., B, T - L + 1).  Both the template correlation and the
-    sliding-window energy are short-kernel convolutions, which XLA lowers
-    to implicit-GEMM on the MXU -- measured ~20x faster on TPU than the
-    FFT formulation (whose power-of-two round-up doubles an already
-    padded clip and streams GB-scale complex intermediates through HBM).
-    Mirrors detector.py:75-79 without the RX IIR.
+    sliding-window energy are short-kernel convolutions (XLA hands them
+    to the convolution library), not an FFT formulation, whose
+    power-of-two round-up doubles an already padded clip and streams
+    GB-scale complex intermediates through device memory.  Mirrors
+    detector.py:75-79 without the RX IIR.
 
-    ``compute_dtype=jnp.bfloat16`` runs the convs at the MXU's native
-    rate (~4x the f32 pass) with f32 accumulation.  Sync is pure
-    peak-FINDING -- scores only gate/rank candidate positions, they never
-    enter the chip estimates -- so the ~0.4% relative error is harmless
-    there.  Keep f32 anywhere the output feeds demodulation.
+    ``compute_dtype=jnp.bfloat16`` runs the convs on bf16 tensor cores
+    with f32 accumulation.  Sync is pure peak-FINDING -- scores only
+    gate/rank candidate positions, they never enter the chip estimates
+    -- so the ~0.4% relative error is harmless there.  Keep f32 anywhere
+    the output feeds demodulation; with ``compute_dtype=None`` the convs
+    are pinned to full f32 precision (no TF32).
     """
     L = templates.shape[-1]
     nb = templates.shape[0]
@@ -226,16 +222,20 @@ def normalized_xcorr(x: jnp.ndarray, templates: jnp.ndarray,
         xr = xr.astype(compute_dtype)
         kern = kern.astype(compute_dtype)
         x2 = x2.astype(compute_dtype)
+    prec = (jax.lax.Precision.HIGHEST if compute_dtype is None
+            else jax.lax.Precision.DEFAULT)
     dn = jax.lax.conv_dimension_numbers(xr.shape, kern.shape,
                                         ("NCW", "OIW", "NCW"))
     corr = jax.lax.conv_general_dilated(
         xr, kern, window_strides=(1,), padding="VALID",
-        dimension_numbers=dn, preferred_element_type=jnp.float32)
+        dimension_numbers=dn, precision=prec,
+        preferred_element_type=jnp.float32)
 
     ones = jnp.ones((1, 1, L), xr.dtype)
     e2 = jax.lax.conv_general_dilated(
         x2, ones, window_strides=(1,), padding="VALID",
-        dimension_numbers=dn, preferred_element_type=jnp.float32)
+        dimension_numbers=dn, precision=prec,
+        preferred_element_type=jnp.float32)
     energy = jnp.sqrt(jnp.maximum(e2, 0.0)) + 1e-12
     return (corr / energy).reshape(lead + (nb, corr.shape[-1]))
 
@@ -303,7 +303,7 @@ def refine_chips(windows: jnp.ndarray, chips: jnp.ndarray,
     true symbols), re-synthesise through the forward model, and correct
     with the residual.  Measured: single-frame chip BER 1.5% -> 0.2%
     (band 8-10 kHz, f32), which brings digitally-clean captures within the
-    reference-compatible FEC's tolerance.  2 matmuls/iteration, all MXU.
+    reference-compatible FEC's tolerance.  2 matmuls/iteration.
 
     Shapes: windows (..., W), chips (..., FRAME_LEN),
             T_fwd (..., W, FRAME_LEN), M (..., FRAME_LEN, W).
@@ -365,7 +365,8 @@ def refine_chips(windows: jnp.ndarray, chips: jnp.ndarray,
 def preamble_score(chips: jnp.ndarray, pre_sy: jnp.ndarray) -> jnp.ndarray:
     """Cosine of the first 63 recovered chips vs the raw MLS symbols."""
     seg = chips[..., :PRE_L]
-    num = jnp.einsum("...i,i->...", seg, pre_sy)
+    num = jnp.einsum("...i,i->...", seg, pre_sy,
+                     precision=jax.lax.Precision.HIGHEST)
     den = jnp.linalg.norm(seg, axis=-1) * np.sqrt(float(PRE_L)) + 1e-12
     return num / den
 
@@ -406,23 +407,10 @@ def payload_llr(chips: jnp.ndarray, pn_sy: jnp.ndarray,
     E[z^2] = a^2 + s^2 and E|z| ~= a for a >> s, so
     llr = 2 a z / s^2 after unit-power normalisation.
 
-    On TPU the whole chain runs as the fused Pallas kernel
-    (ops/pallas/llr_kernel.py, one VMEM pass per 8-row block; numerics
-    pinned to this path by tests/test_pallas.py).  ``jax.default_backend``
-    is a trace-time constant, so the branch costs nothing at runtime; set
-    ``ECHOSEAL_NO_PALLAS=1`` to force the XLA path.
+    The chain is elementwise work plus two row reductions, which XLA
+    fuses into one or two reduction kernels.
     """
-    payload = chips[..., PRE_L + HDR_L :]
-    if (payload.shape[-1] == 1024 and clip == 16.0
-            and jax.default_backend() == "tpu"
-            and not os.environ.get("ECHOSEAL_NO_PALLAS")):
-        from echoseal_tpu.ops.pallas.llr_kernel import payload_llr_pallas
-
-        lead = payload.shape[:-1]
-        out = payload_llr_pallas(payload.reshape(-1, 1024),
-                                 pn_sy.reshape(-1, 1024))
-        return out.reshape(lead + (1024,))
-    z = payload * pn_sy
+    z = chips[..., PRE_L + HDR_L :] * pn_sy
     power = jnp.mean(z * z, axis=-1, keepdims=True) + 1e-20
     zn = z * jax.lax.rsqrt(power)
     amp = jnp.clip(jnp.mean(jnp.abs(zn), axis=-1, keepdims=True), 0.05, 1.0)

@@ -2,7 +2,7 @@
 
 Design (coefficients, impulse responses, matched-filter taps, correlation
 templates) happens once on the host in float64 via SciPy and is cached as
-small constants.  Execution on long signals happens on the TPU:
+small constants.  Execution on long signals happens on the device:
 
 * ``iir_apply``  -- exact ``scipy.signal.lfilter`` semantics (direct-form II
   transposed) as a ``lax.scan`` over time, batched over leading axes.  Used

@@ -5,7 +5,9 @@ communication exists (SURVEY.md 2.9/5.8) -- so the sharding story is pure
 data parallelism on a 1-D ``streams`` axis: clips, lengths and outputs are
 sharded; the per-key tables (demod matrices, PN keystream, hop schedule)
 are replicated.  One ``psum`` aggregates the global accept count so the
-program exercises an ICI collective end-to-end.
+program exercises a cross-device collective end-to-end (NCCL over NVLink
+on a multi-GPU host; every card reaches every other at the same rate, so
+the mesh is the 1-D ``streams`` axis alone).
 
 TX scale-out mirrors this: `shard_tx` shards batched frame synthesis over
 the same axis.
@@ -33,7 +35,7 @@ def shard_verify(verifier, mesh: Mesh):
 
     ``B`` must be divisible by the mesh size.  Tables ride replicated; the
     returned dict adds ``n_crc_ok`` -- the global count reduced with a psum
-    across the mesh so at least one collective crosses ICI.
+    across the mesh so at least one collective crosses devices.
     """
     from echoseal_tpu.models.pipeline import _batch_verify_stage
 

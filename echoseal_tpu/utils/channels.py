@@ -356,8 +356,8 @@ def speech_host(seconds: float, fs: int = 48_000, rng=None,
     Output RMS over the ACTIVE (non-pause) regions is ``level`` (same
     scale as the 700 Hz tone fixtures, ~11x the watermark's -10 dB
     embedding).  Spectrally and temporally this is the host class the
-    v2 profile must survive; rows live in benchmarks/impaired_1k.json
-    and benchmarks/codec_envelope.json ("speech host").
+    v2 profile must survive; rows live in benchmarks/impaired_bench.py
+    and benchmarks/codec_envelope.py ("speech host").
     """
     from scipy.signal import lfilter
 

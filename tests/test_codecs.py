@@ -6,7 +6,7 @@ stdlib ``audioop`` ships actual encoder/decoder pairs for G.711
 mu-law / A-law (8-bit companding) and IMA ADPCM (4-bit differential),
 plus a real linear-interpolation rate converter -- so these rows are
 genuine encode->decode round-trips, not simulations.  Verdicts are
-pinned to the measured envelope (benchmarks/codec_envelope.json); if a
+pinned to the measured envelope (benchmarks/codec_envelope.py); if a
 demod improvement flips a rejected row to True, update the pin -- the
 wrong-key rows must NEVER flip.
 """
@@ -57,7 +57,7 @@ def test_v2_adpcm_envelope(key32, v2_clip):
     """IMA ADPCM (4-bit differential) survives: the measured pin.
 
     Measured accept 1.0 over independent (nonce, excerpt) draws
-    (benchmarks/codec_envelope.json) -- the 8x-oversampled v2 chips keep
+    (benchmarks/codec_envelope.py) -- the 8x-oversampled v2 chips keep
     enough per-chip energy below ADPCM's slope-noise knee.  Wrong key
     must reject regardless.
     """
@@ -141,7 +141,7 @@ def test_v2_survives_mpeg1_l2_64k(key32, v2_clip):
 def test_compat_rejects_real_codec_gracefully(key32):
     """Compat (digitally-clean carrier) rejects an 8-bit trunk capture.
 
-    Measured envelope (benchmarks/codec_envelope.json): compat accept 0.0
+    Measured envelope (benchmarks/codec_envelope.py): compat accept 0.0
     through every real codec, wrong-key accept 0.0 -- graceful rejection,
     no false positives.  If a demod improvement flips the right-key row
     to True, update the pin; the wrong-key row must NEVER flip.

@@ -62,7 +62,7 @@ def test_slice_windows_matches_numpy(seed):
     """Window extraction equals numpy slicing, including the start clamp.
 
     ``demod.slice_windows`` is the production formulation (slice-granular
-    gather rows -- 25x the per-sample index-lattice gather on TPU); its
+    gather rows, not a per-sample index-lattice gather); its
     contract is plain ``x[s : s + span]`` with starts clamped to
     ``[0, T - span]``, for both the (T,) and (B, T) source layouts.
     """

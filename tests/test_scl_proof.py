@@ -1,7 +1,7 @@
 """SCL decoder proof at the shipped default list size (VERDICT r1 item 2).
 
 The full measured operating curve (ours vs the reference engine at
-L in {8, 32, 256}, sigma in [0.1, 1.0]) lives in benchmarks/scl_sweep.json
+L in {8, 32, 256}, sigma in [0.1, 1.0]) lives in benchmarks/scl_sweep.py
 (generated by benchmarks/scl_sweep.py).  These tests pin the two facts a
 CI run must keep true:
 
@@ -92,10 +92,11 @@ def test_scl_implementations_parity(which_spec):
 
     ``_scl_decode_dense`` is the direct transcription of the list-decode
     recursion (eager full-state gathers, the oracle); ``_scl_decode_lazy``
-    is the index-map/traceback rewrite (CPU production path);
-    ``_scl_decode_blocked`` is the two-level blocked scan;
+    is the index-map/traceback rewrite (pinned for the CPU suite);
+    ``_scl_decode_blocked`` is the two-level blocked scan (the library
+    default);
     ``_scl_decode_unrolled`` is the statically-unrolled fast-list
-    formulation (TPU production path -- frozen leaves skip the fork,
+    formulation (frozen leaves skip the fork,
     aligned rate-0 / repetition subtrees collapse to exact node-level
     shortcuts).  A systemic deviation in the shared fork logic would have
     no other detector, so this pins: identical sorted metrics and the
@@ -180,7 +181,7 @@ def test_serving_scl_waterfall_fer(which_spec):
     metric + capped node forks) may lose individual borderline frames
     vs the exact decoder, but across the batch it must decode at least
     as many frames minus a small deterministic slack -- the full
-    measured curve lives in benchmarks/scl_sweep.json (serving rows).
+    measured curve lives in benchmarks/scl_sweep.py (serving rows).
     """
     import jax.numpy as jnp
 
